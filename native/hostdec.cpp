@@ -4,7 +4,7 @@
 // check_frame's CRC (vdlm2.c:39-62, residual 0xf0b8).
 //
 // This is the only per-frame host work at pod scale (thousands of channels
-// feed compact burst records back from the TPU); everything upstream runs on
+// feed compact burst records back from the device); everything upstream runs on
 // the device.  Built as a plain shared library, bound via ctypes.
 //
 // API (C ABI):

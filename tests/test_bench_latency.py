@@ -1,6 +1,6 @@
 """bench --latency path: the per-block turnaround harness must keep
-working on the production pipelined streaming path (CPU smoke; the real
-numbers are TPU-measured, PERF.md)."""
+working on the production pipelined streaming path (CPU smoke; latency
+numbers come only from a run on the GPU)."""
 import sys
 
 import bench

@@ -1,9 +1,10 @@
-"""Fused Pallas filter+sync + inline demod vs the XLA reference path.
+"""Streaming sync (sync_impl="stream") vs the full-filter path ("xla").
 
-sync_impl="fused" must (a) reproduce the sync metric to float tolerance
-(same math, different accumulation order) and (b) decode identical frames
-through the full pipeline, in both channelizer modes, with and without
-bf16 compute.  Runs the Pallas interpreter on the CPU backend.
+"stream" filters only polyphase branch 0 for the sync metric and lets the
+demod filter its own windows inline, so the (C, 4, T, 2) filter tensor is
+never built.  It must (a) reproduce the full-filter sync metric to float
+tolerance and (b) decode identical frames through the whole pipeline, in
+both channelizer modes, with and without bf16 compute.
 """
 import numpy as np
 import pytest
@@ -11,8 +12,8 @@ import pytest
 import jax.numpy as jnp
 
 import bench as B
-from vdlm2dec_tpu.ops.demod import phase_of, polyphase_filter, sync_scan
-from vdlm2dec_tpu.ops.pallas_sync import sync_scan_pallas
+from vdlm2dec_tpu.ops.demod import (phase_of, polyphase_filter,
+                                    polyphase_filter0, sync_scan)
 from vdlm2dec_tpu.pipeline import Pipeline, PipelineConfig
 
 
@@ -24,11 +25,11 @@ def test_sync_metric_matches_xla():
     t = len(wide) - len(wide) % pipe.channelizer.p_in
     y = jnp.asarray(np.asarray(pipe.channelizer(wide[:t])))
     err_x, fr_x = sync_scan(phase_of(polyphase_filter(y)[:, 0]))
-    err_p, fr_p = sync_scan_pallas(y)
-    assert err_p.shape == err_x.shape
-    np.testing.assert_allclose(np.asarray(err_p), np.asarray(err_x),
+    err_s, fr_s = sync_scan(phase_of(polyphase_filter0(y)))
+    assert err_s.shape == err_x.shape
+    np.testing.assert_allclose(np.asarray(err_s), np.asarray(err_x),
                                rtol=1e-4, atol=1e-4)
-    np.testing.assert_allclose(np.asarray(fr_p), np.asarray(fr_x),
+    np.testing.assert_allclose(np.asarray(fr_s), np.asarray(fr_x),
                                rtol=1e-4, atol=1e-5)
 
 
@@ -50,7 +51,7 @@ def test_fused_frame_parity(chan_impl, compute):
     wide, freqs, fc, truth = B.make_capture(2_000_000, 8, 2.0)
     raw = B.to_u8(wide)
     got = {}
-    for sync_impl in ("xla", "fused", "stream"):
+    for sync_impl in ("xla", "stream"):
         cfg = PipelineConfig(
             freqs_hz=[float(f) for f in freqs], fs=2_000_000,
             fc_hz=float(fc), lo_wrap=True, chan_impl=chan_impl,
@@ -59,19 +60,16 @@ def test_fused_frame_parity(chan_impl, compute):
         )
         got[sync_impl] = _frames(Pipeline(cfg), raw)
     assert got["xla"] == sorted((c, b) for c, b, *_ in truth)
-    assert got["fused"] == got["xla"]
-    # "stream" = branch-0-only filter + streaming sync + inline demod:
-    # identical frames to both other paths
     assert got["stream"] == got["xla"]
 
 
 def test_fused_streaming_matches_one_shot():
-    """The fused sync path through the streaming window machinery."""
+    """The streaming sync path through the streaming window machinery."""
     wide, freqs, fc, truth = B.make_capture(2_000_000, 8, 2.0)
     raw = B.to_u8(wide)
     cfg = PipelineConfig(
         freqs_hz=[float(f) for f in freqs], fs=2_000_000, fc_hz=float(fc),
-        max_candidates=64, max_symbols=512, max_out=512, sync_impl="fused",
+        max_candidates=64, max_symbols=512, max_out=512, sync_impl="stream",
     )
     pipe = Pipeline(cfg)
     frames = sorted(

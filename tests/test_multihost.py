@@ -1,4 +1,4 @@
-"""Multi-host (DCN) decode: 2 real processes x 4 virtual CPU devices.
+"""Multi-host decode: 2 real processes x 4 virtual CPU devices.
 
 Proves the SCALING.md recipe executable end to end: a global (chan=1,
 time=8) mesh spanning two jax.distributed processes, cross-process halo
@@ -41,7 +41,7 @@ def capture(tmp_path_factory):
                 rng.integers(0, 256, 40).astype(np.uint8),
                 rng.integers(0, 256, 25).astype(np.uint8)]
     # burst 1 inside p0; burst 2 triggers just BEFORE the process seam so
-    # its demod window needs p1's samples over DCN; burst 3 inside p1
+    # its demod window needs p1's samples across processes; burst 3 inside p1
     starts = [3000, SEAM - 500, SEAM + 9000]
     sig = np.zeros(T_TOTAL, dtype=np.complex128)
     for st, c in zip(starts, contents):
@@ -67,7 +67,7 @@ def test_two_process_seam_matches_single_process(capture):
     # bit-identical across the process count
     assert frames2 == frames1
     # ownership: the seam burst's trigger is in p0's last shard, so p0
-    # emits it (demodulated from p1's halo samples over DCN)
+    # emits it (demodulated from p1's halo samples across processes)
     seam_frames = {f for f in frames2 if SEAM - 600 < f[1] < SEAM}
     assert seam_frames and seam_frames <= by_proc[0]
     # p1 emits the burst in its own region

@@ -82,7 +82,7 @@ def test_pipeline_two_bursts_one_channel():
 
 
 def test_pipeline_matches_golden_frames():
-    """Same capture through golden scalar chain and TPU pipeline."""
+    """Same capture through golden scalar chain and device pipeline."""
     from vdlm2dec_tpu.golden.dsp import GoldenChannel
     from vdlm2dec_tpu.golden.codec import deframe_block
 
@@ -104,9 +104,9 @@ def test_pipeline_matches_golden_frames():
                          max_symbols=1024, max_candidates=8)
     pipe = Pipeline(cfg)
     bursts = pipe.decode_channels(sig[None, :].astype(np.complex64))
-    tpu_frames = [tuple(f.tolist()) for b in bursts for f in b.frames]
+    dev_frames = [tuple(f.tolist()) for b in bursts for f in b.frames]
     assert gold_frames, "golden decoded nothing"
-    assert tpu_frames == gold_frames
+    assert dev_frames == gold_frames
 
 
 def test_pipeline_max_capacity_burst():
@@ -294,12 +294,11 @@ def test_device_probe_matches_dispatch(chan_impl):
 
 
 def test_chan_impl_auto_resolution():
-    """chan_impl="auto" (the default since r4) picks the residue-space
-    dft channelizer exactly when the plan is eligible — raster-aligned
-    offsets under wrapped-LO boxcar with no Pallas ingest — and falls
-    back to the dense matmul otherwise.  dft is bit-identical on
-    eligible plans (checksum-verified on the real chip) and measured
-    13% faster chip-bound at 8 channels."""
+    """chan_impl="auto" (the default) picks the residue-space dft
+    channelizer exactly when the plan is eligible — raster-aligned
+    offsets under wrapped-LO boxcar — and falls back to the dense matmul
+    otherwise.  dft computes the same products on eligible plans in
+    25/84 the FLOPs."""
     from vdlm2dec_tpu.ops.channelizer import resolve_chan_impl
     from vdlm2dec_tpu.pipeline import Pipeline, PipelineConfig
 
@@ -310,8 +309,6 @@ def test_chan_impl_auto_resolution():
                              filter_mode="fir") == "matmul"
     assert resolve_chan_impl(on, 2_000_000, 500,
                              lo_wrap=False) == "matmul"
-    assert resolve_chan_impl(on, 2_000_000, 500,
-                             use_pallas=True) == "matmul"
     # airspy chains: offsets relative to fc + fs/4 stay on the raster
     assert resolve_chan_impl(on, 5_000_000, 1250) == "dft"
     assert resolve_chan_impl(on, 6_000_000, 1500) == "dft"
@@ -328,5 +325,5 @@ def test_chan_impl_auto_resolution():
     assert pipe.cfg.chan_impl == "dft"
     assert pipe.channelizer.impl == "dft"
     cfg2 = PipelineConfig(freqs_hz=[136_975_000.0], fc_hz=136_800_000.0,
-                          max_symbols=256, use_pallas=True)
+                          max_symbols=256, filter_mode="fir")
     assert Pipeline(cfg2).channelizer.impl == "matmul"

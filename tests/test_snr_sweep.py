@@ -14,7 +14,7 @@ from vdlm2dec_tpu.pipeline import Pipeline, PipelineConfig
 
 
 def _trial(rng, snr_db, n=8):
-    """Returns (golden_ok, tpu_ok) decode counts over n bursts."""
+    """Returns (golden_ok, device_ok) decode counts over n bursts."""
     cfg = PipelineConfig(freqs_hz=[136_975_000.0], fc_hz=136_900_000.0,
                          max_symbols=512, max_candidates=4)
     pipe = Pipeline(cfg)

@@ -6,7 +6,7 @@ identical samples (tools/soak_compare.py --scenario cfo); VERDICT r4 #7
 asks for the 13 misses to be EXPLAINED, not asserted away.  This tool
 replays the exact soak stimulus (same seed/rng order, truth recorded),
 runs ONLY the compiled reference (tests/refshim, unmodified sources —
-no TPU needed), and classifies every miss by controlled re-test:
+no accelerator needed), and classifies every miss by controlled re-test:
 
   isolated     the burst ALONE in a fresh capture, same impairments:
                if the reference decodes it, the miss needs context —

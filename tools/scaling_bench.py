@@ -1,4 +1,4 @@
-"""Measured multi-host scaling over the real DCN path.
+"""Measured multi-host scaling over the real cross-process path (Gloo, CPU).
 
 Runs the multihost worker (parallel/multihost.py: jax.distributed + Gloo
 collectives between real processes) over a FIXED capture at 1..N
@@ -17,7 +17,7 @@ throughput and parallel efficiency vs P=1:
 
 This machine has very few cores, so the curve stops at
 cores-available; the point of the artifact is a MEASURED efficiency on
-the genuine DCN code path, not a big-iron number (SCALING.md carries
+the genuine cross-process code path, not a big-iron number (SCALING.md carries
 the cost model for real pods).
 
 Usage: python tools/scaling_bench.py [--seconds 8] [--out FILE]

@@ -2,7 +2,7 @@
 """SNR sweep harness (BASELINE config 4): decode rate vs SNR, 2-20 dB.
 
 Synthesizes bursts at controlled SNR/CFO/timing and reports frame decode
-probability per SNR point for the TPU pipeline (optionally also the golden
+probability per SNR point for the device pipeline (optionally also the golden
 scalar oracle for comparison).
 
 Usage: python tools/snr_sweep.py [--trials 20] [--golden] [--snrs 2 4 ... 20]
@@ -61,7 +61,7 @@ def main() -> int:
                     if any(np.array_equal(f[1:-3], content) for f in fr):
                         ok_g += 1
                         break
-        row = {"snr_db": snr, "tpu_rate": round(ok_t / args.trials, 3)}
+        row = {"snr_db": snr, "device_rate": round(ok_t / args.trials, 3)}
         if args.golden:
             row["golden_rate"] = round(ok_g / args.trials, 3)
         rows.append(row)

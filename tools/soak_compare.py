@@ -18,7 +18,7 @@ Scenarios (--scenario):
           6000000 for the Mini) through ref_shim_air vs our
           real_input pipeline.
 
-Common flags: --dft/--pfb (residue channelizers), --fused (Pallas
+Common flags: --dft/--pfb (residue channelizers), --stream (streaming
 sync), --bf16, --seconds/--channels overrides, --json OUT.
 Exit code: 0 iff ours >= reference on the common key set (strict
 superset) AND ours missed no reference frame.
@@ -144,9 +144,8 @@ def main() -> int:
                          "6000000 Mini)")
     ap.add_argument("--dft", action="store_true")
     ap.add_argument("--pfb", action="store_true")
-    ap.add_argument("--fused", action="store_true")
     ap.add_argument("--stream", action="store_true",
-                    help="sync_impl=stream (the r5 product default)")
+                    help="sync_impl=stream (the product default)")
     ap.add_argument("--bf16", action="store_true")
     ap.add_argument("--json", default=None, help="write a summary JSON")
     ap.add_argument("--cpu", action="store_true",
@@ -213,8 +212,7 @@ def main() -> int:
         # density, x2 headroom for garbage triggers (slots are consumed
         # per sync candidate, not per valid frame)
         max_symbols=1024, max_candidates=64, chan_impl=impl,
-        sync_impl=("fused" if args.fused
-                   else "stream" if args.stream else "xla"),
+        sync_impl="stream" if args.stream else "xla",
         compute="bf16" if args.bf16 else "f32",
         max_out=max(96, 56 * len(freqs)))
     pipe = Pipeline(cfg)

@@ -1,7 +1,7 @@
 """Command-line decoder: vdlm2dec-compatible flag surface + file input.
 
 Mirrors the reference CLI (main.c:63-104,126-198) 1:1 where meaningful for an
-offline/TPU decoder, and adds the capture-file input the reference lacks
+offline accelerator decoder, and adds the capture-file input the reference lacks
 (initFile/runFileSample are dead declarations, vdlm2.h:110-111):
 
   -v / -q            verbose / quiet
@@ -16,7 +16,7 @@ offline/TPU decoder, and adds the capture-file input the reference lacks
   -l logfile         log file (append)
   frequencies (MHz)  positional, 118-138 MHz validated (rtl.c:222)
 
-File/TPU specific:
+File/accelerator specific:
   --iq FILE          capture file (required)
   --format cu8|cs16|cf32|f32real
   --fs HZ            input sample rate (default 2,000,000)
@@ -42,7 +42,7 @@ from .pipeline import Pipeline, PipelineConfig
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="vdlm2t",
-        description="TPU-native VDL Mode 2 decoder (vdlm2dec-compatible)",
+        description="JAX VDL Mode 2 decoder (vdlm2dec-compatible)",
     )
     p.add_argument("freqs", nargs="+", type=float, help="frequencies in MHz")
     p.add_argument("--iq", required=True, help="IQ capture file")
@@ -62,32 +62,29 @@ def build_parser() -> argparse.ArgumentParser:
                         "seconds while decoding (long/live jobs)")
     p.add_argument("--checkpoint", default=None,
                    help="checkpoint file: resume from it and update per block")
-    p.add_argument("--pallas", action="store_true",
-                   help="use the fused Pallas channelizer kernel")
     p.add_argument("--channel-filter", default="boxcar",
                    choices=["boxcar", "fir"],
                    help="boxcar = reference-parity integrate-and-dump; "
                         "fir = windowed-sinc with >60 dB adjacent-channel "
                         "rejection")
     p.add_argument("--sync-impl", default="stream",
-                   choices=["xla", "stream", "fused"],
-                   help="fused: Pallas filter+sync kernel + inline demod "
-                        "filtering (the polyphase tensor never exists in "
-                        "HBM; frame-parity tested)")
+                   choices=["xla", "stream"],
+                   help="stream (default): branch-0 filter + running-sum "
+                        "sync + inline demod filtering; xla: full polyphase "
+                        "filter tensor (frame-parity tested)")
     p.add_argument("--compute", default="f32", choices=["f32", "bf16"],
-                   help="bf16: mix/filter matmuls on bfloat16 operands with "
-                        "f32 accumulation (3x MXU rate; header/RS/CRC stay "
-                        "exact; frame-parity tested)")
+                   help="bf16: channelizer matmuls on bfloat16 operands with "
+                        "f32 accumulation (header/RS/CRC stay exact; "
+                        "frame-parity tested)")
     p.add_argument("--chan-impl", default="auto",
                    choices=["auto", "matmul", "dft", "pfb"],
                    help="auto (default) = residue-space dft when the plan "
-                        "is eligible (raster offsets, boxcar, no --pallas "
-                        "— every real VDL plan), else dense matmul; dft = "
-                        "residue-space channelizer (25/84 the FLOPs, "
-                        "bit-identical output, 13%% faster chip-bound at "
-                        "8ch, scales to whole-band channel counts); pfb = "
+                        "is eligible (raster offsets, boxcar — every real "
+                        "VDL plan), else dense matmul; dft = residue-space "
+                        "channelizer (25/84 the FLOPs, same products, "
+                        "scales to whole-band channel counts); pfb = "
                         "factorized-DFT filterbank (O(sqrt(tbl)) per "
-                        "output, wins past ~hundreds of channels)")
+                        "output, for hundreds of channels)")
 
     p.add_argument("-v", dest="verbose", action="store_true")
     p.add_argument("-q", dest="quiet", action="store_true")
@@ -167,10 +164,6 @@ def main(argv=None) -> int:
     if not freqs:
         print("Need at least one valid frequency (118-138 MHz)", file=sys.stderr)
         return 1
-    if args.chan_impl in ("dft", "pfb") and args.pallas:
-        print(f"--chan-impl {args.chan_impl} replaces the Pallas ingest kernel; "
-              "drop --pallas", file=sys.stderr)
-        return 1
     if args.chan_impl in ("dft", "pfb") and args.channel_filter != "boxcar":
         print(f"--chan-impl {args.chan_impl} requires the boxcar channel filter",
               file=sys.stderr)
@@ -245,7 +238,6 @@ def main(argv=None) -> int:
         real_input=real_input,
         max_symbols=min(MAX_BURST_SYMBOLS, args.max_rows * 680 + 16),
         mesh=mesh,
-        use_pallas=args.pallas,
         filter_mode=args.channel_filter,
         chan_impl=args.chan_impl,
         compute=args.compute,
@@ -336,9 +328,9 @@ def main(argv=None) -> int:
     # prev_end restores cross-block burst-span suppression)
     core_raw = pipe.core_raw_samples(args.block_seconds)
     start_block = min(cursor, total_samples) // core_raw
-    fused_ok = cfg.lo_wrap and mesh is None and (
-        args.format == "cu8" or not args.pallas    # Pallas ingest is u8-only
-    ) and cfg.filter_mode == "boxcar"              # fused program is boxcar
+    # the fused program is boxcar-only
+    fused_ok = (cfg.lo_wrap and mesh is None
+                and cfg.filter_mode == "boxcar")
     if fused_ok:
         # fast path: native-format raw blocks through the fused pipelined
         # device program (convert on device, one dispatch+fetch per block)

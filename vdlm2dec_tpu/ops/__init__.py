@@ -1,1 +1,1 @@
-"""TPU compute path: vectorised JAX/Pallas ops for the VDL-M2 pipeline."""
+"""Device compute path: vectorised JAX ops for the VDL-M2 pipeline."""

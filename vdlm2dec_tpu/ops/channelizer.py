@@ -1,4 +1,4 @@
-"""Batched channelizer: mixer + integrate-and-dump decimator as MXU matmuls.
+"""Batched channelizer: mixer + integrate-and-dump decimator as matmuls.
 
 The reference runs one thread per channel doing a scalar LO multiply and a
 fractional integrate-and-dump (21/SDRCLK accumulator, d8psk.c:353-381).  Here
@@ -14,7 +14,7 @@ the same arithmetic is re-expressed block-parallel:
     (fs/25 kHz) divides P_in;
 
 so the whole channelizer is:  Y[c, p, :] = (x[p, :] * lo0[c, :] * phase[c, p]) @ A
-— an elementwise VPU pass plus one MXU matmul, batched over channels and
+— an elementwise pass plus one matmul, batched over channels and
 periods, with no sequential state.
 
 Semantics checked against golden.dsp.mix_and_decimate in tests.
@@ -136,7 +136,7 @@ def dft_tables(
     The whole channelizer becomes
 
         z[b, r, m] = x[b, idx[r, m]] * invlen[m]        (pure gather)
-        y[c, b, m] = sum_r w[c, r] * z[b, r, m]         (one MXU matmul)
+        y[c, b, m] = sum_r w[c, r] * z[b, r, m]         (one matmul)
 
     which is EXACTLY the same products as the per-channel mix+dump but
     O(tbl) instead of O(p_in) multiply-accumulates per output sample
@@ -171,8 +171,7 @@ def dft_qr_tables(f_offsets: tuple[float, ...], fs: int, sdrclk: int,
     p_in = (p_in/tbl) * tbl always holds (25 at every supported rate),
     so x reshapes losslessly to (B, Q, tbl) with residue r as the minor
     axis, and the residue-space tensor becomes a batched contraction
-    over Q instead of a 27M-element gather (TPU gathers run ~12 ms per
-    1M elements; this einsum is ~2.7 Gflop on the MXU):
+    over Q instead of a 27M-element gather:
 
         z[b, r, m] = sum_q x2[b, q, r] * A2[q, r, m]
 
@@ -266,35 +265,31 @@ def split_phase_index(idx: np.ndarray, p_in: int) -> np.ndarray:
     (pipeline._raw_to_planes_split): position n lives at
     (n >> 1) + (n & 1) * (p_in // 2).  Precomputed so the residue-space
     gather consumes the split layout directly — the interleave that a
-    sample-ordered plane would need is a minor-dim relayout the TPU
-    runs at ~0.5 GB/s."""
+    sample-ordered plane would need is never materialized."""
     assert p_in % 2 == 0
     return ((idx >> 1) + (idx & 1) * (p_in // 2)).astype(idx.dtype)
 
 
 def resolve_chan_impl(
     f_offsets, fs: int, sdrclk: int, lo_wrap: bool = True,
-    filter_mode: str = "boxcar", use_pallas: bool = False,
+    filter_mode: str = "boxcar",
 ) -> str:
     """Pick the channelizer implementation for impl="auto".
 
     The residue-space ("dft") formulation computes the SAME products as
-    the dense mix+dump (bit-identical output, checksum-verified on the
-    real chip) in O(tbl)=O(fs/25 kHz) MACs per output instead of
-    O(P_in), with no (C, B, P_in) mixed intermediate — measured 13%
-    faster chip-bound even at 8 channels, 2x+ at high channel counts.
+    the dense mix+dump in O(tbl)=O(fs/25 kHz) MACs per output instead of
+    O(P_in), with no (C, B, P_in) mixed intermediate.
     It is exact only when every channel's LO is tbl-periodic, i.e. each
     offset is a 25 kHz-raster multiple (true for all real VDL plans:
     channels sit on the raster and chooseFc lands fc on it), under the
     reference's wrapped-LO boxcar mode.  Off-raster plans, the FIR
-    filter, lo_wrap=False or the Pallas VMEM kernel keep the dense
-    matmul path."""
+    filter or lo_wrap=False keep the dense matmul path."""
     p_in, _ = period_for(sdrclk)
     tbl = fs // STEPRATE
     on_raster = all(
         abs(f - STEPRATE * round(f / STEPRATE)) < 1e-6 for f in f_offsets
     )
-    if (not use_pallas and lo_wrap and filter_mode == "boxcar"
+    if (lo_wrap and filter_mode == "boxcar"
             and fs % STEPRATE == 0 and tbl > 0 and p_in % tbl == 0
             and on_raster):
         return "dft"
@@ -304,11 +299,11 @@ def resolve_chan_impl(
 def mm_mode(compute: str):
     """(cast dtype, matmul precision) for a compute mode.
 
-    "f32": HIGHEST = full-f32 MXU (3 bf16 passes).  "bf16": one MXU pass
-    on bfloat16 operands with f32 accumulation — ~0.5% amplitude error on
-    decimated samples, absorbed by the sync metric / soft slicer
-    (frame-parity tested in test_bf16_mode.py); 3x the matmul rate and
-    half the operand HBM traffic."""
+    "f32": HIGHEST = true f32 products (no TF32 rounding of the inputs).
+    "bf16": bfloat16 operands with f32 accumulation — ~0.5% amplitude
+    error on decimated samples, absorbed by the sync metric / soft
+    slicer (frame-parity tested in test_bf16_mode.py); half the operand
+    memory traffic."""
     if compute == "bf16":
         return jnp.bfloat16, jax.lax.Precision.DEFAULT
     return jnp.float32, jax.lax.Precision.HIGHEST
@@ -359,10 +354,9 @@ def pfb_tables(f_offsets: tuple[float, ...], fs: int, sdrclk: int):
     Computing ALL tbl bins by FFT costs O(tbl log tbl) instead of
     O(C*tbl) — the classic oversampled polyphase filterbank (boxcar
     prototype = the reference's integrate-and-dump, output on the 84 kHz
-    grid like every other impl).  This backend has no complex dtype and
-    loves small dense matmuls, so the DFT is factorized Cooley-Tukey with
+    grid like every other impl).  The DFT is factorized Cooley-Tukey with
     tbl = a*b (near-sqrt): DFT_a matmul -> twiddle -> DFT_b matmul, all
-    on re/im f32 planes via the MXU — O(a+b) per output element vs the
+    on re/im f32 planes — O(a+b) per output element vs the
     dft impl's O(C); crossover at roughly C > a+b (57 at 20 Msps,
     18 at 2 Msps).
 
@@ -401,7 +395,7 @@ def _channelize_pfb_jit(x_r, x_i, a2, dfa, tw, dfb, bins,
     """Residue contraction + factorized-DFT filterbank: x (B, P_in) f32
     pair -> (C, B*84) pair.  The residue-space tensor comes from the same
     gather-free (B, Q, tbl) x (Q, tbl, 84) contraction as the dft impl
-    (dft_qr_tables — the element gather measured ~12 ms/1M on chip);
+    (dft_qr_tables);
     the (C, tbl) matmul is replaced by DFT_a -> twiddle -> DFT_b over
     all tbl bins, then a bin gather for the requested channels.
 
@@ -409,7 +403,7 @@ def _channelize_pfb_jit(x_r, x_i, a2, dfa, tw, dfb, bins,
     with split=True (a2 in the split-phase cu8 layout) the even/odd
     half-contractions produce true residues [0,2,..] and [1,3,..], which
     interleave back via a middle-axis stack+reshape (the 84-wide minor
-    dim stays intact, so this is a sublane shuffle, not a relayout)."""
+    dim stays intact)."""
     bsz = x_r.shape[0]
     q_n, tbl, p_out = a2.shape
     dt, prec = mm_mode(compute)
@@ -524,7 +518,7 @@ def _channelize_jit(x_r, x_i, lo_r, lo_i, ph_r, ph_i, a, interleave=False,
     """Core: x (B, P_in) f32 pair, lo (C, P_in), ph (C, B), a (P_in, P_out).
 
     Returns (C, B*P_out) complex64 as (real, imag) f32 pair.
-    compute="f32": all matmuls full-f32 on the MXU; "bf16": see mm_mode.
+    compute="f32": all matmuls in true f32; "bf16": see mm_mode.
     """
     # mixed[c, b, n] = x[b, n] * lo[c, n]  (complex)
     mr = x_r[None, :, :] * lo_r[:, None, :] - x_i[None, :, :] * lo_i[:, None, :]
@@ -619,8 +613,7 @@ class Channelizer:
     ) -> jnp.ndarray:
         """x: (T,) wideband block, T a multiple of P_in.  Returns
         (C, T*21/sdrclk, 2) float32 decimated channels (re/im planes —
-        the device pipeline is complex-free by design: XLA lowers complex
-        to real pairs anyway and f32 planes keep TPU layouts clean).
+        the device pipeline is complex-free by design).
 
         period0: explicit absolute period index of x[0] (blockwise /
         overlapping reads); when given, the internal cursor is untouched,
@@ -704,8 +697,8 @@ class Channelizer:
         contraction (dft_qr_tables), built LAZILY per layout: split=True
         is the cu8 split-phase ingest layout, False the sample order.
         Any one run uses exactly one layout, and a band-scale a2 is tens
-        of MB of HBM — building both eagerly doubled that for nothing
-        (r5 review)."""
+        of MB of device memory — building both eagerly doubled that for
+        nothing."""
         cached = self._qr_cache.get(split)
         if cached is None:
             wq, a2 = dft_qr_tables(self.f_offsets, self.fs, self.sdrclk,

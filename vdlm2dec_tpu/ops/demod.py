@@ -52,12 +52,20 @@ for _c in range(13):
 _POLY32 = POLYPHASE.astype(np.float32)           # (4, 17)
 _GRAY32 = GRAY_TABLES.astype(np.float32)         # (3, 257)
 # Gray soft values split into two bf16 parts (hi + residual) so the
-# one-hot matmul lookup is exact to ~1e-5 relative — a dynamic gather
-# of (M, ms) soft bits measured ~12 ms/1M elements on the chip, the
-# one-hot matmul ~4 (r5 micro probes)
+# one-hot matmul lookup (used in place of a dynamic gather of (M, ms)
+# soft bits) is exact to ~1e-5 relative
 _GRAY_HI = GRAY_TABLES.T.astype(np.float32)      # (257, 3)
 _SW32 = SYNC_PHASES.astype(np.float32)           # (17,)
 _KS = KEYSTREAM.astype(np.bool_)                 # (MAX_BURST_BITS,)
+
+
+def _pick_column(sel: jnp.ndarray, col: jnp.ndarray) -> jnp.ndarray:
+    """sel (M, K, 8, 2), col (M,) in [0, 8) -> sel[m, :, col[m], :].
+
+    A masked sum with one nonzero term: exact (x + 0 == x), and no dot
+    that a GPU could run in TF32."""
+    hit = jnp.arange(8)[None, :] == col[:, None]             # (M, 8)
+    return jnp.sum(jnp.where(hit[:, None, :, None], sel, 0.0), axis=2)
 
 
 def _gray_soft(gi: jnp.ndarray) -> jnp.ndarray:
@@ -95,11 +103,8 @@ def polyphase_filter(y: jnp.ndarray, compute: str = "f32") -> jnp.ndarray:
 
     Implemented as 17 static-slice multiply-adds (out[t] = sum_j
     y[t-16+j] * taps[:, j], matching filteredphase d8psk.c:219-230) —
-    one fused elementwise pass, always f32.  The former
-    conv_general_dilated lowering took 7.3 ms per 8M-sample block for
-    0.73 Gflop of work (r5 stage probes); `compute` is kept for
-    signature compatibility but the slice form needs no precision knob
-    (it never touches the MXU)."""
+    one fused elementwise pass, always f32 (no matmul, so `compute`
+    has nothing to select and is accepted for a uniform signature)."""
     del compute
     c, t, _ = y.shape
     yp = jnp.pad(y, ((0, 0), (16, 0), (0, 0))).astype(jnp.float32)
@@ -143,10 +148,9 @@ def _sync_scan_core(pad: jnp.ndarray, t: int) -> tuple[jnp.ndarray, jnp.ndarray]
     as static slices of pad while S0 = sum(pr), S1 = sum(pr*(k-8)),
     S2 = sum(pr^2) accumulate, then the LS residual comes out closed-form
     (err = S2 - S0^2/17 - S1^2/408, fr = S1/408 — exact because
-    sum(k-8) = 0 over k=0..16).  The previous formulation materialized
-    the (C, 17, T) window tensor plus ~6 same-size temporaries through
-    HBM: 35.8 of the 8ch block's 231 ms chip budget (device_stages, r5);
-    this one is a single fused elementwise pass over 17 slice reads.
+    sum(k-8) = 0 over k=0..16).  A single fused elementwise pass over 17
+    slice reads: no (C, 17, T) window tensor or same-size temporaries
+    go through device memory.
     Same unwrap/metric semantics as filteredphase+demodD8psk
     (d8psk.c:241-291), oracle-tested."""
     sw = _SW32
@@ -174,29 +178,28 @@ def _sync_scan_core(pad: jnp.ndarray, t: int) -> tuple[jnp.ndarray, jnp.ndarray]
     return err, fr
 
 
-# dense sync scan materializes (C, 17, T) windows (x several temporaries);
 # past this element count, chunk the time axis through lax.map so peak
-# memory — and the remote compiler's appetite — stays bounded
+# memory and the size of the compiled program stay bounded
 _SYNC_DENSE_LIMIT = 8_000_000
 _SYNC_CHUNK = 8192
 
 
 def _prefix_count(x: jnp.ndarray) -> jnp.ndarray:
     """Inclusive prefix sum of a (C, T) 0/1 int32 stream via a two-level
-    block decomposition: one (128, 128) lower-triangular MXU matmul for
-    the intra-block prefixes + a tiny cumsum of block totals.  The
-    direct jnp.cumsum over the long axis measured 7.8 ms per (8, 336k)
-    block on the chip (log-depth passes, each a full HBM round trip);
-    this is one matmul pass (~690 Mflop) + O(T/128) scalar work.  Exact:
-    counts stay far below 2^24 (f32 integer range)."""
+    block decomposition: one (128, 128) lower-triangular matmul for the
+    intra-block prefixes + a tiny cumsum of block totals, in place of a
+    log-depth cumsum over the long axis.  Exact: counts stay far below
+    2^24 (f32 integer range)."""
     c, t = x.shape
     blk = 128
     nb = -(-t // blk)
     xp = jnp.pad(x, ((0, 0), (0, nb * blk - t))).astype(jnp.float32)
     xb = xp.reshape(c, nb, blk)
     tri = jnp.tril(jnp.ones((blk, blk), jnp.float32)).T   # [i, j] = i <= j
+    # DEFAULT allows TF32: exact here, 0/1 operands and sums <= 128
     intra = jnp.einsum("cbi,ij->cbj", xb, tri,
-                       preferred_element_type=jnp.float32)
+                       preferred_element_type=jnp.float32,
+                       precision=jax.lax.Precision.DEFAULT)
     tot = intra[:, :, -1]
     offs = jnp.cumsum(tot, axis=1) - tot                  # exclusive
     out = (intra + offs[:, :, None]).astype(jnp.int32)
@@ -263,7 +266,7 @@ def find_triggers(
     # suppress re-triggers: the serial decoder leaves WSYNC at the first
     # trigger of a preamble, so later local minima within one sync window
     # (17 symbols = 136 samples) never fire.  Windowed-OR via prefix
-    # counts (two-level MXU decomposition — see _prefix_count).
+    # counts (two-level matmul decomposition — see _prefix_count).
     cnt = _prefix_count(trig.astype(jnp.int32))
     prev = cnt - trig.astype(jnp.int32)                   # count up to t-1
     prev_far = jnp.pad(cnt, ((0, 0), (137, 0)))[:, :t]    # count up to t-137
@@ -272,10 +275,7 @@ def find_triggers(
     # earliest K triggers: surviving triggers are >136 samples apart (the
     # suppression window), so every 128-sample block holds AT MOST ONE —
     # a per-block min-reduce compacts (C, T) to (C, T/128) exactly, and
-    # the top_k runs on that.  This replaces the whole-stream TopK
-    # custom call, whose scoped-VMEM scratch grew with T (overflowed
-    # 16 MB near T~350k -> the old chunk-and-merge workaround, which
-    # itself measured 2x the cost of an unchunked call).
+    # the top_k runs on that instead of on the whole stream.
     pos = jnp.where(trig, tt[None, :], t + 1)
     blk = 128
     nb = -(-t // blk)
@@ -352,19 +352,18 @@ def demod_candidates_inline(
     df: jnp.ndarray,
     max_symbols: int,
 ) -> jnp.ndarray:
-    """demod_candidates_flat without the materialized filter tensor —
-    and since r5, without big dynamic gathers:
+    """demod_candidates_flat without the materialized filter tensor and
+    without big dynamic gathers:
 
       * each candidate's contiguous y window comes from ONE slab gather
-        (M start indices, (win, 2) slices — streams as DMA instead of
-        per-element addressing);
+        (M start indices, contiguous (win, 2) slices);
       * the 17-tap matched filter at the candidate's polyphase runs as
-        17 static-slice multiply-adds over the whole window (the old
-        (ms, 17) fancy gather cost ~12 ms per 1M elements);
+        17 static-slice multiply-adds over the whole window (no (ms, 17)
+        element gather);
       * symbol selection exploits s1 = (35-clk0)//4 in {5,6,7,8}: after
         reshaping the filtered window to 8-sample rows, the symbol
-        stream is a 0/1 row shift (s1==8) plus an 8-way one-hot column
-        contraction — fully static indexing;
+        stream is a 0/1 row shift (s1==8) plus an 8-way column select
+        (_pick_column) — fully static indexing;
       * Gray soft bits come from the one-hot matmul lookup.
 
     Same products as filteredphase (d8psk.c:219-230) at exactly the
@@ -390,8 +389,11 @@ def demod_candidates_inline(
 
     # trigger-time filteredphase with the clk0-extended taps
     taps1 = jnp.asarray(_EXT_TAPS)[clk0]              # (M, MBUFLEN)
+    # HIGHEST: a TF32 dot would round the filter inputs to 10 bits and
+    # move the trigger-time phase p1 off the CPU/reference value
     s1v = jnp.einsum("mkp,mk->mp", w[:, : taps1.shape[1]], taps1,
-                     preferred_element_type=jnp.float32)
+                     preferred_element_type=jnp.float32,
+                     precision=jax.lax.Precision.HIGHEST)
     p1 = jnp.arctan2(s1v[:, 1], s1v[:, 0])
 
     # matched filter over the whole window at each candidate's polyphase
@@ -408,9 +410,7 @@ def demod_candidates_inline(
     base = fv[:, : ms + 1]                            # (M, ms+1, 8, 2)
     shift = (s1 == 8)
     sel = jnp.where(shift[:, None, None, None], base[:, 1:], base[:, :ms])
-    col = (jnp.arange(8)[None, :] == (s1 & 7)[:, None]).astype(jnp.float32)
-    sym = jnp.einsum("mkcp,mc->mkp", sel, col,
-                     preferred_element_type=jnp.float32)  # (M, ms, 2)
+    sym = _pick_column(sel, s1 & 7)                   # (M, ms, 2)
 
     p = jnp.arctan2(sym[..., 1], sym[..., 0])
     pprev = jnp.concatenate([p1[:, None], p[:, :-1]], axis=1)

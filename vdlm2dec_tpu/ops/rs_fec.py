@@ -1,4 +1,4 @@
-"""Vectorised RS(255,249) decoder: GF(2^8) as mod-2 MXU matmuls.
+"""Vectorised RS(255,249) decoder: GF(2^8) as mod-2 matmuls.
 
 The expensive, regular parts of RS decoding — syndrome computation, Chien
 search and the Forney numerator/denominator evaluations — are F2-linear maps
@@ -122,7 +122,9 @@ def _mul_table() -> np.ndarray:
 
 
 def _mod2_matmul(bits: jnp.ndarray, m: jnp.ndarray) -> jnp.ndarray:
-    acc = jnp.dot(bits.astype(jnp.float32), m, preferred_element_type=jnp.float32)
+    # DEFAULT allows TF32: exact here, 0/1 operands and sums < 2^11
+    acc = jnp.dot(bits.astype(jnp.float32), m, preferred_element_type=jnp.float32,
+                  precision=jax.lax.Precision.DEFAULT)
     return acc.astype(jnp.int32) & 1
 
 
@@ -143,10 +145,9 @@ def _gfmul_lut(a: jnp.ndarray, b: jnp.ndarray, mul) -> jnp.ndarray:
 
 
 def _lut_lookup_onehot(x: jnp.ndarray, lut: jnp.ndarray) -> jnp.ndarray:
-    """256-entry LUT lookup as a one-hot matmul.  On TPU a large dynamic
-    gather runs ~3x slower than building the one-hot and letting the MXU
-    do the select (measured 11.9 vs 4.1 ms per 1M lookups, r5 micro
-    probes); bf16 is exact here (LUT values <= 255 < 2^8 mantissa)."""
+    """256-entry LUT lookup as a one-hot matmul in place of a large
+    dynamic gather; bf16 is exact here (LUT values <= 255 < 2^8
+    mantissa)."""
     oh = (x[..., None] == jnp.arange(256, dtype=x.dtype)).astype(
         jnp.bfloat16)
     v = jnp.dot(oh.reshape(-1, 256), lut.astype(jnp.bfloat16)[:, None],
@@ -162,8 +163,10 @@ def _gfmul_bilinear(a: jnp.ndarray, b: jnp.ndarray,
     ab = ((a[..., None] >> jnp.arange(8)) & 1)
     bb = ((b[..., None] >> jnp.arange(8)) & 1)
     o = (ab[..., :, None] * bb[..., None, :]).reshape(a.shape + (64,))
+    # DEFAULT allows TF32: exact here, 0/1 operands and sums <= 64
     acc = jnp.dot(o.reshape(-1, 64).astype(jnp.float32), red,
-                  preferred_element_type=jnp.float32)
+                  preferred_element_type=jnp.float32,
+                  precision=jax.lax.Precision.DEFAULT)
     cb = acc.astype(jnp.int32) & 1
     return _pack_bytes(cb.reshape(a.shape + (8,)).reshape(
         a.shape[:-1] + (a.shape[-1] * 8,)))
@@ -185,7 +188,7 @@ def rs_decode_rows(rows: jnp.ndarray, eras_class: jnp.ndarray) -> tuple[jnp.ndar
     m = rows.shape[0]
     data = rows.astype(jnp.int32)
 
-    # ---- syndromes (one MXU matmul) ----
+    # ---- syndromes (one matmul) ----
     dbits = ((data[:, :, None] >> jnp.arange(8)) & 1).reshape(m, RS_N * 8)
     sbits = _mod2_matmul(dbits, jnp.asarray(mats["syn"]))
     s = _pack_bytes(sbits)                              # (M, 6)
@@ -231,7 +234,7 @@ def rs_decode_rows(rows: jnp.ndarray, eras_class: jnp.ndarray) -> tuple[jnp.ndar
     idx7 = jnp.arange(RS_ROOTS + 1)
     deg_lambda = jnp.max(jnp.where(lam != 0, idx7[None, :], 0), axis=1)
 
-    # ---- Chien search (one MXU matmul): val(q) = 1 ^ sum_j lam_j a^{j(q+1)} --
+    # ---- Chien search (one matmul): val(q) = 1 ^ sum_j lam_j a^{j(q+1)} --
     lbits = ((lam[:, 1:, None] >> jnp.arange(8)) & 1).reshape(m, 48)
     cbits = _mod2_matmul(lbits, jnp.asarray(mats["chien"]))
     val = _pack_bytes(cbits) ^ 1                        # (M, 255)
@@ -247,14 +250,12 @@ def rs_decode_rows(rows: jnp.ndarray, eras_class: jnp.ndarray) -> tuple[jnp.ndar
         omega.append(acc)
     omega = jnp.stack(omega, axis=1)                    # (M, 6)
 
-    # ---- Forney over all positions (two MXU matmuls) ----
+    # ---- Forney over all positions (two matmuls) ----
     # num12 = omega(alpha^{-q}) * num2(q) in ONE matmul (num2 folded into
     # the eval matrix); magnitude = num12 * inv(den) via a one-hot
-    # inverse lookup + a bilinear bit product.  The former formulation's
-    # three (M, 255) log/exp gathers were the single hottest piece of
-    # the RS stage on chip (~12 ms per 1M-element gather, r5 probes);
-    # inv[0] = 0 makes the product vanish exactly where the old where()
-    # masked num==0 or den==0.
+    # inverse lookup + a bilinear bit product, in place of three (M, 255)
+    # log/exp gathers; inv[0] = 0 makes the product vanish exactly where
+    # num==0 or den==0.
     obits = ((omega[:, :, None] >> jnp.arange(8)) & 1).reshape(m, 48)
     num12 = _pack_bytes(_mod2_matmul(obits, jnp.asarray(mats["omega12"])))
     lodd = lam[:, 1::2]                                 # lambda_1,3,5

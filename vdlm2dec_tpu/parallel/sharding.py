@@ -6,7 +6,7 @@ The framework's two parallel axes (SURVEY.md section 2.2):
   * "time"  — overlap-save time-block sharding of each channel's infinite
               sample stream (the reference carries per-sample state instead,
               channel_t in vdlm2.h:56-79).  Neighbouring time shards
-              exchange halos over ICI via lax.ppermute:
+              exchange halos over NVLink via lax.ppermute:
                 - left halo  (HALO_LEFT samples): matched-filter ring (16) +
                   sync correlation window (128) + trigger hysteresis;
                 - right halo (burst window): a burst whose sync trigger lands
@@ -17,7 +17,7 @@ The framework's two parallel axes (SURVEY.md section 2.2):
 Input IQ at the raw rate needs NO halo: the integrate-and-dump channelizer
 is local within each 4*SDRCLK-sample period, so raw blocks are sharded on
 exact period boundaries and the halos are exchanged on the cheap 84 kHz
-stream (24x less ICI traffic than raw-rate halos).
+stream (24x less NVLink traffic than raw-rate halos).
 """
 from __future__ import annotations
 
@@ -91,7 +91,7 @@ class ShardedWidebandDecoder:
     The raw input (T_raw,) is sharded over the "time" axis on exact
     channelizer-period boundaries (4*SDRCLK samples), so channelization is
     purely local; the per-channel 84 kHz streams then exchange halos over
-    ICI and run the decode stages, with channels sharded over "chan".
+    NVLink and run the decode stages, with channels sharded over "chan".
 
     Each shard compacts its candidates on device into the packed uint8 row
     format (pipeline._device_decode_packed layout) so the host does ONE
@@ -220,7 +220,8 @@ def raw_decode_step(max_candidates: int, max_symbols: int, max_out: int,
 def packed_decode_step(max_candidates: int, max_symbols: int, max_out: int):
     """shard_map body shared by the single-host and multi-host decoders:
     local (C_local, T_local, 2) decimated block -> packed candidate rows,
-    with halo exchange along "time" (ICI within a host, DCN across hosts)
+    with halo exchange along "time" (NVLink within a host, the host
+    network across hosts)
     and global chan/t0 baked into the row meta."""
     right = burst_window(max_symbols)
 
